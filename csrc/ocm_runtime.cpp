@@ -2,14 +2,14 @@
 //
 // The reference's host-side machinery is C: a staging queue with
 // drop-on-full backpressure drained by a pthread (reference
-// src/common.c:223-403).  This library provides the TPU framework's
-// equivalents on the ingest side of the host<->HBM boundary:
+// src/common.c:223-403).  This library provides this framework's
+// equivalents on the ingest side of the host<->device boundary:
 //
 //   * a bounded lock-protected frame queue (drop-on-full, matching the
 //     reference's CM_SURFACE_QUEUE_SIZE semantics, common.h:46);
 //   * NV12 -> RGBA8888 conversion (BT.601/709, limited-range, integer
 //     fixed point — the wire format decoders hand us);
-//   * RGBA deinterleave to planar (the TPU-friendly layout);
+//   * RGBA deinterleave to planar (the hot path's layout);
 //   * synthetic pattern generators (color bars / gradient / zone plate)
 //     used by tests and the benchmark as a frame source.
 //

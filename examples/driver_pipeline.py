@@ -2,7 +2,7 @@
 
 The reference runs ONE pipeline per source — graphics thread stages,
 a pthread consumes through a bounded drop-on-full queue, scopes publish
-double-buffered (src/common.c:335-454).  This example is the TPU-native
+double-buffered (src/common.c:335-454).  This example is the device-side
 twin of that whole stack, composed from the public pieces:
 
   * ``PipelineDriver(dock=...)`` — producer pushes frames (packed RGBA
@@ -10,15 +10,14 @@ twin of that whole stack, composed from the public pieces:
     through the Dock's ONE-program stream step (analysis + hub
     publication + every scope render + composite in a single cached
     device program per frame).
-  * ``driver.push_nv12`` stages the host→HBM plane upload on the
+  * ``driver.push_nv12`` stages the host→device plane upload on the
     producer thread — the transfer overlaps the worker's running
-    program (measured: doc/performance.md "Upload overlap"), which is
-    the reference's stage-while-accumulating pattern.
+    program, which is the reference's stage-while-accumulating pattern.
   * ``on_panel`` is the sink: it receives the device-resident panel per
     frame; fetching/encoding there never blocks the producer.
 
-Run (CPU works; a TPU host streams at hundreds of fps — see
-doc/performance.md §Streaming "driver-fed dock" rows):
+Run (CPU works; on a GPU the driver-fed dock's rate is not measured yet,
+see PERF.md):
     python examples/driver_pipeline.py --frames 24 --size 320x180
 """
 
@@ -75,7 +74,7 @@ def main() -> None:
             else:
                 ok = drv.push_frame(native.pattern("ramp", w, h, i))
             if not ok:
-                time.sleep(0.002)  # backpressure: queue full, retry later
+                time.sleep(0.002)  # queue full: the frame was dropped
         drv.flush()
     finally:
         drv.stop()

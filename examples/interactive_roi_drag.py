@@ -2,9 +2,9 @@
 
 The reference's dock lets you drag a region-of-interest on the preview
 band and every scope re-analyzes just that crop, live, every tick
-(reference src/roi.c:343-521 + src/common.c:273-282).  On a TPU that is
-only interactive if the drag does NOT retrace/recompile the program —
-a cold compile takes seconds to minutes.  Here the rect is a runtime
+(reference src/roi.c:343-521 + src/common.c:273-282).  On an accelerator
+that is only interactive if the drag does NOT retrace/recompile the
+program — a cold compile of the dock takes seconds.  Here the rect is a runtime
 (4,) input to ONE compiled dock program (`make_dock_step(dynamic_roi=
 True)` under the hood), so a drag is just new scalars each frame.
 

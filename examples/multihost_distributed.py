@@ -1,22 +1,23 @@
-"""Multi-host deployment example: scope analysis across TPU pod hosts (DCN).
+"""Multi-host deployment example: scope analysis across several hosts.
 
-Completes the scaling story (doc/performance.md "Scaling"): within one host,
-frames shard over ICI via the batch mesh; across hosts, `jax.distributed`
-builds the global mesh and each host feeds its own locally-ingested streams
-(frames never cross DCN — per-frame results are <=256 KB, so only the tiny
-stats would ever travel, and with per-host output fetching nothing does).
+Completes the scaling story: within one host, frames shard over the host's
+devices via the batch mesh; across hosts, `jax.distributed` builds the
+global mesh and each host feeds its own locally-ingested streams (frames
+never cross the network between hosts — per-frame results are <=256 KB, so
+only the tiny stats would ever travel, and with per-host output fetching
+nothing does).
 
 This mirrors the reference's deployment unit (one OBS process per machine,
 SURVEY.md §5 'distributed communication backend': the reference has none —
 multi-machine means independent processes; here the mesh makes the fleet
 one logical device array while keeping frame traffic host-local).
 
-Launch on every host of a pod slice (or simulate with --simulate):
+Launch on every host (or simulate with --simulate):
 
     python examples/multihost_distributed.py \
         --coordinator 10.0.0.2:8476 --num_hosts 4 --host_id $ID
 
-Simulated locally (no pod needed; 8 virtual CPU devices, 1 process):
+Simulated locally (one process, 8 virtual CPU devices):
 
     python examples/multihost_distributed.py --simulate
 """
@@ -50,7 +51,7 @@ def main() -> None:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_num_cpu_devices", 8)
     elif args.coordinator:
-        # One process per host; JAX wires the pod over DCN and exposes the
+        # One process per host; JAX connects the hosts and exposes the
         # global device list.  Frames stay host-local (addressable shards).
         jax.distributed.initialize(
             coordinator_address=args.coordinator,
@@ -77,7 +78,7 @@ def main() -> None:
 
     # Each host ingests ONLY its shard of the global batch (its own camera /
     # decoder feeds) and assembles the global array from local shards — the
-    # multi-host ingest pattern; no frame bytes cross DCN.
+    # multi-host ingest pattern; no frame bytes cross between hosts.
     rng = np.random.default_rng(jax.process_index())
     global_shape = (batch, h, w, 4)
     per_dev = batch // n_dev

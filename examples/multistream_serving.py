@@ -1,11 +1,11 @@
 """Multi-stream serving example: batch-DP scope analysis over a device mesh.
 
-The reference analyzes one OBS program feed; a production TPU deployment
-serves MANY streams by sharding the frame batch across chips
+The reference analyzes one OBS program feed; a multi-card deployment
+serves MANY streams by sharding the frame batch across devices
 (obs_color_monitor_tpu/parallel/mesh.py).  This example runs N synthetic
 streams through the batched fused analysis and prints per-stream summaries.
 
-Run on real devices (one chip still works — a 1-device mesh):
+Run on real devices (one card still works — a 1-device mesh):
     python examples/multistream_serving.py --streams 8 --size 640x360
 Demo the multi-device sharding anywhere with a virtual CPU mesh:
     python examples/multistream_serving.py --streams 8 --cpu-mesh

@@ -1,21 +1,19 @@
-"""obs_color_monitor_tpu — a TPU-native video-scope framework.
+"""obs_color_monitor_tpu — a video-scope framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
+A from-scratch JAX/XLA re-design of the capabilities of the
 obs-color-monitor OBS Studio plugin (reference: norihiro/obs-color-monitor):
 six video-analysis scopes — vectorscope, waveform, histogram, zebra,
 false color, focus peaking — plus a shared ROI/scale-down capture hub and a
 composite "dock" view.
 
-Where the reference renders on GPU, reads pixels back to the CPU and
+Where the reference renders on the GPU, reads pixels back to the CPU and
 accumulates counts in scalar C loops (reference src/common.c:335-454,
-src/vectorscope.c:217-238), this framework keeps batched RGBA frames resident
-in HBM and computes every statistic on device:
+src/vectorscope.c:217-238), this framework keeps frames resident in device
+memory and computes every statistic on the accelerator:
 
-  * the 256-bin histograms decompose into 16x16 outer products of nibble
-    one-hots ridden on the MXU,
-  * the 256x256 CbCr vectorscope occupancy is ``one_hot(U)^T @ one_hot(V)``
-    (an MXU-shaped matmul, not a scatter),
-  * the per-column waveform is a masked one-hot row-reduction,
+  * the 256x256 CbCr vectorscope occupancy and the per-column waveform are
+    int32 scatter-adds,
+  * the 256-bin histograms are the waveform's column sums,
   * overlay scopes (zebra / false color / focus peaking) are fused
     elementwise/stencil ops,
 
@@ -24,9 +22,9 @@ all of it bit-exact against the NumPy golden model in
 
 Layout:
   golden/    NumPy golden model — exact integer semantics, the test oracle
-  ops/       device kernels: convert, stats (XLA + Pallas), overlays, render
+  ops/       device ops: convert, stats, overlays, render
   models/    the scopes themselves (property model mirrors the reference)
-  parallel/  device mesh, batch-DP sharding, cross-chip bin merges
+  parallel/  device mesh, batch-DP sharding, cross-device bin merges
   pipeline/  frame queue, drop/interleave policy, double-buffering, driver
   runtime/   native (C++) host runtime: bounded frame queue, NV12 unpack
 """

@@ -324,7 +324,6 @@ def cmd_scope(args) -> int:
 def cmd_info(args) -> int:
     import jax
 
-    from .ops.fused import default_backend
     from .runtime import native
 
     print(
@@ -332,8 +331,10 @@ def cmd_info(args) -> int:
             {
                 "version": __import__("obs_color_monitor_tpu").__version__,
                 "jax": jax.__version__,
-                "devices": [str(d) for d in jax.devices()],
-                "backend": default_backend(),
+                "backend": jax.devices()[0].platform,
+                "devices": [
+                    {"id": d.id, "kind": d.device_kind} for d in jax.devices()
+                ],
                 "native_runtime": native.available(),
             },
             indent=2,
@@ -426,5 +427,14 @@ def main(argv=None) -> int:
     return args.fn(args)
 
 
+def cli() -> int:
+    """Console entry point: main() with JAX's persistent compile cache on
+    (utils/compile_cache.py)."""
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    return main()
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(cli())

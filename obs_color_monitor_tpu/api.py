@@ -26,7 +26,12 @@ from .config import (
 from .golden.reference import peaking_threshold_fixed, quantize_unorm8
 from .ops import overlays as overlay_ops
 from .ops import render as render_ops
-from .ops.convert import planarize
+from .ops.convert import (
+    nv12_to_packed,
+    nv12_to_planes,
+    planarize,
+    planarize_packed,
+)
 from .ops.fused import analyze
 from .ops.stats import apply_channel_select, histogram_hi_max, histogram_levels
 
@@ -66,10 +71,7 @@ def make_full_step(
       * "rgba"   — frame is (H, W, 4) u8 (planarized on device);
       * "packed" — frame is the (H, W) u32 view of the interleaved RGBA
         bytes (IDENTICAL memory: ``arr.view(np.uint32)`` host-side, or
-        keep capture buffers u32 end-to-end).  The fastest form — the
-        Mosaic band kernel reads it directly, whereas an (H, W, 4) u8
-        argument first pays a full-frame relayout copy to become one
-        (u8 lane groups -> u32 lanes, ~0.19 ms per 4K frame, xprof r3);
+        keep capture buffers u32 end-to-end);
       * "planar" — frame is (4, H, W) u8 (skips planarize);
       * "nv12"   — frame is a (y (H,W) u8, uv (H/2,W) u8) tuple converted
         on device (1.5 bytes/px ingest; csrc spec, bit-exact vs native).
@@ -85,7 +87,6 @@ def make_full_step(
     fc_cfg = falsecolor or FalseColorConfig()
     fp_cfg = focuspeaking or FocusPeakingConfig()
     from .colorspace import calc_colorspace
-    from .ops.fused import default_backend
 
     cs = int(calc_colorspace(cs))
     # overlay scopes draw with their OWN colorspace property (reference
@@ -98,118 +99,42 @@ def make_full_step(
     hi_yuv_mode = hi_cfg.components.is_yuv
     peak_color_u8 = quantize_unorm8(np.asarray(fp_cfg.peaking_rgba, np.float32))
     peak_color = jnp.asarray(peak_color_u8)
-    peak_tuple = tuple(int(v) for v in peak_color_u8)
     peak_th = peaking_threshold_fixed(fp_cfg.peaking_threshold)
     sw, sh = width // scale, height // scale
 
     if input_format not in ("rgba", "packed", "planar", "nv12"):
         raise ValueError(f"unknown input_format {input_format!r}")
-
-    from .ops.fused import AnalysisResult
-
-    # the whole-frame pipeline kernel covers the flagship configuration:
-    # one Mosaic pass over the full-res frame computes the three overlays
-    # AND the scaled statistics inputs (ops/pallas_pipeline.py)
-    from .ops.pallas_pipeline import pipeline_fits
-
-    use_lut_static = fc_cfg.use_lut and fc_cfg.lut is not None
-    # prefer the whole-frame kernel; when its full-width working set misses
-    # VMEM (4K scale-1 with overlays: 18.1 MB), try the column-split build —
-    # two half-width passes per band with halo columns at the seam
-    pipe_split = 0
-    if not use_lut_static and wv_yuv_mode == hi_yuv_mode:
-        for cand in (1, 2):
-            if pipeline_fits(
-                height, width, scale, with_overlays=True, col_split=cand
-            ):
-                pipe_split = cand
-                break
-    use_pipeline = pipe_split > 0
+    use_lut = fc_cfg.use_lut and fc_cfg.lut is not None
 
     @jax.jit
     def step(frame, tm: jax.Array) -> ScopeOutputs:
-        # planarize ONCE; stats and overlays all consume planes.  On the
-        # pipeline fast path an rgba frame skips even that: the band kernel
-        # reads the packed u32 view and extracts the bytes itself.
-        on_pipeline = use_pipeline and default_backend() == "pallas"
-        planes = packed = None
+        # planarize ONCE; stats and overlays all consume planes
         if input_format == "nv12":
             y, uv = frame
-            if on_pipeline:
-                # decode straight to the packed u32 view so NV12 input
-                # rides the fused band kernel like rgba/packed input
-                # (the planar decode would forfeit the fast path)
-                from .ops.convert import nv12_to_packed
-
-                packed = nv12_to_packed(y, uv, cs=cs, shift=nv12_shift)
-            elif nv12_shift:
-                from .ops.convert import nv12_to_packed, planarize_packed
-
+            if nv12_shift:
                 planes = planarize_packed(
                     nv12_to_packed(y, uv, cs=cs, shift=nv12_shift)
                 )
             else:
-                from .ops.convert import nv12_to_planes
-
                 planes = nv12_to_planes(y, uv, cs=cs)
         elif input_format == "planar":
             planes = frame
         elif input_format == "packed":
-            if on_pipeline:
-                packed = frame  # already the u32 view — zero copies
-            else:
-                from .ops.convert import planarize_packed
-
-                planes = planarize_packed(frame)
-        elif on_pipeline:
-            packed = jax.lax.bitcast_convert_type(frame, jnp.uint32)
+            planes = planarize_packed(frame)
         else:
             planes = planarize(frame)
-        zb_img = fc_img = fp_img = None
-        if on_pipeline:
-            from .ops.pallas_pipeline import frame_pipeline
-            from .ops.pallas_stats import histogram_from_waveform
-
-            vs_i32, wv_i32, _ds, zb_img, fc_img, fp_img = frame_pipeline(
-                packed if packed is not None else planes,
-                tm,
-                cs=cs,
-                scale=scale,
-                yuv_data=wv_yuv_mode,
-                packed=packed is not None,
-                th_low=zb_cfg.th_low,
-                th_high=zb_cfg.th_high,
-                zb_cs=zb_cs,
-                fc_cs=fc_cs,
-                peak_th=int(peak_th),
-                peak_rgba=peak_tuple,
-                col_split=pipe_split,
-            )
-            vs_u8 = jnp.minimum(vs_i32, 255).astype(jnp.uint8)
-            wv_u8 = jnp.minimum(wv_i32, 255).astype(jnp.uint8)
-            hi_u32 = histogram_from_waveform(wv_i32)
-            res = AnalysisResult(
-                yuv_planes=None,
-                vs_counts=vs_u8,
-                wv_rgb=None if wv_yuv_mode else wv_u8,
-                wv_yuv=wv_u8 if wv_yuv_mode else None,
-                hi_rgb=None if hi_yuv_mode else hi_u32,
-                hi_yuv=hi_u32 if hi_yuv_mode else None,
-                planes=None,
-            )
-        else:
-            res = analyze(
-                planes,
-                cs=cs,
-                scale=scale,
-                need_vs=True,
-                need_wv_rgb=not wv_yuv_mode,
-                need_wv_yuv=wv_yuv_mode,
-                need_hi_rgb=not hi_yuv_mode,
-                need_hi_yuv=hi_yuv_mode,
-                keep_rgba=False,
-                is_planar=True,
-            )
+        res = analyze(
+            planes,
+            cs=cs,
+            scale=scale,
+            need_vs=True,
+            need_wv_rgb=not wv_yuv_mode,
+            need_wv_yuv=wv_yuv_mode,
+            need_hi_rgb=not hi_yuv_mode,
+            need_hi_yuv=hi_yuv_mode,
+            keep_rgba=False,
+            is_planar=True,
+        )
         vs_img = render_ops.render_vectorscope(
             res.vs_counts,
             intensity=vs_cfg.intensity,
@@ -243,38 +168,19 @@ def make_full_step(
             n_components=hi_cfg.components.n_components,
             yuv_mode=hi_yuv_mode,
         )
-        use_lut = use_lut_static
-        if zb_img is not None:
-            pass  # overlays already produced by the pipeline kernel
-        elif default_backend() == "pallas" and not use_lut:
-            # one pass over the frame for all three overlays (shared read +
-            # shared luma; Mosaic kernel, bit-exact twin of the XLA ops)
-            from .ops.pallas_overlays import fused_overlays_planes
-
-            zb_img, fc_img, fp_img = fused_overlays_planes(
+        zb_img = overlay_ops.zebra_planes(
+            planes, th_low=zb_cfg.th_low, th_high=zb_cfg.th_high, tm=tm, cs=zb_cs
+        )
+        if use_lut:
+            fc_img = overlay_ops.falsecolor_lut_planes(
                 planes,
-                tm,
-                th_low=zb_cfg.th_low,
-                th_high=zb_cfg.th_high,
-                zb_cs=zb_cs,
-                fc_cs=fc_cs,
-                peak_th=int(peak_th),
-                peak_rgba=peak_tuple,
+                jnp.asarray(fc_cfg.lut),
+                cs=fc_cs,
+                lut_n=fc_cfg.lut.shape[0],
             )
         else:
-            zb_img = overlay_ops.zebra_planes(
-                planes, th_low=zb_cfg.th_low, th_high=zb_cfg.th_high, tm=tm, cs=zb_cs
-            )
-            if use_lut:
-                fc_img = overlay_ops.falsecolor_lut_planes(
-                    planes,
-                    jnp.asarray(fc_cfg.lut),
-                    cs=fc_cs,
-                    lut_n=fc_cfg.lut.shape[0],
-                )
-            else:
-                fc_img = overlay_ops.falsecolor_planes(planes, cs=fc_cs)
-            fp_img = overlay_ops.focus_peaking_planes(planes, peak_th, peak_color)
+            fc_img = overlay_ops.falsecolor_planes(planes, cs=fc_cs)
+        fp_img = overlay_ops.focus_peaking_planes(planes, peak_th, peak_color)
         return ScopeOutputs(
             vectorscope=vs_img,
             waveform=wv_img,
@@ -287,13 +193,6 @@ def make_full_step(
             hi_counts=hi_counts.astype(jnp.uint32),
         )
 
-    # True when the whole step flows through the frame-pipeline kernel,
-    # whose tm input makes every output loop-variant — bench.py relies on
-    # this for its copy-free anti-hoist and must fall back to an input XOR
-    # otherwise.  The backend factor is part of the flag: on CPU/XLA the
-    # generic stats path ignores tm, so use_pipeline alone would let a
-    # benchmark drop its anti-hoist and time a hoisted loop.
-    step.pipeline_static_ok = use_pipeline and default_backend() == "pallas"
     return step
 
 

@@ -7,7 +7,7 @@ quantized bytes back (reference src/common.c:335-373).  GPU float->UNORM8
 rounding is vendor-defined, so the reference itself has no bit-exact spec.
 
 This framework *defines* the canonical conversion in 12-bit fixed point so
-the golden model (NumPy) and the TPU kernels agree bit-for-bit:
+the golden model (NumPy) and the device ops agree bit-for-bit:
 
     q(c) = clip((K_r*r + K_g*g + K_b*b + O + 2^11) >> 12, 0, 255)
 
@@ -18,9 +18,9 @@ matches the reference's float path within +-1 LSB (differing only on exact
 rounding boundaries) and is deterministic on every backend.
 
 The 2^12 scale is chosen so every intermediate is an integer-valued float32
-(products <= 255 * 2^12 < 2^21 << 2^24): the TPU kernels can run the whole
-conversion on the fast f32 VPU path (int32 multiplies are emulated and
-slow) while staying bit-identical to the golden model's int64 arithmetic.
+(products <= 255 * 2^12 < 2^21 << 2^24): the device ops run the whole
+conversion in f32 while staying bit-identical to the golden model's int64
+arithmetic.
 
 Channel conventions (this framework): frames are RGBA uint8 ``(..., H, W, 4)``
 in R,G,B,A order; YUV images are ``(..., H, W, 3)`` in Y,U,V order.  (The

@@ -126,8 +126,8 @@ class _TrackedConfig:
     generation counter into ``_gen``, giving the dock's per-frame cache
     revalidation an O(1) value-identity check — ``config_key`` memoizes
     its derived tuple per generation instead of re-walking every dataclass
-    field each streamed frame (that derivation was ~a third of the
-    stream route's host residual on this 1-core host, doc/performance.md).
+    field each streamed frame (that derivation was about a third of the
+    stream route's host time per frame).
 
     Caveat (documented contract): only FIELD ASSIGNMENT is tracked.
     Mutating a mutable field value in place (e.g. writing into a
@@ -149,8 +149,8 @@ def config_key(cfg, skip: tuple[str, ...] = ()) -> tuple:
     Equivalent to ``repr(cfg)`` as a cache key (two configs with equal
     fields collide, a mutated field changes the key) but ~10x cheaper —
     the dock's fused/stream render caches revalidate every scope's key
-    every frame, and string formatting dominated that host path
-    (benchmarks/soak_stream.py).  Memoized per config GENERATION (see
+    every frame, and string formatting dominated that host path.
+    Memoized per config GENERATION (see
     _TrackedConfig), so the steady-state revalidation is two dict probes.
     ``skip`` drops unhashable fields the caller fingerprints separately
     (e.g. a false-color LUT array).
@@ -279,7 +279,7 @@ class HistogramConfig(CaptureConfig):
 
     @graticule_horizontal_step.setter
     def graticule_horizontal_step(self, v: float) -> None:
-        """Legacy alias (pre-r3-final this was a single field applied in every
+        """Legacy alias (this was once a single field applied in every
         level mode): writes BOTH mode-paired settings so old call sites and
         saved docks keep their horizontal graticule in whichever mode runs."""
         self.graticule_horizontal_step_fixed = float(v)

@@ -3,7 +3,7 @@
 The reference has no unit tests of its accumulation loops (SURVEY.md §4);
 this module is the missing specification.  Every function here is an exact,
 order-independent restatement of a reference CPU loop or shader, written in
-integer/fixed-point arithmetic so that the TPU kernels can be tested for
+integer/fixed-point arithmetic so that the device ops can be tested for
 bit-identical results.
 
 Conventions (see colorspace.py): frames are RGBA uint8 (H, W, 4) in R,G,B,A

@@ -270,8 +270,7 @@ class CaptureHub:
 
         frame: (H, W, 4) u8, (4, H, W) with is_planar=True (skips the
         on-device planarize), or the (H, W) u32 packed view of the
-        interleaved bytes — the zero-copy HBM-resident form (identical
-        memory; on TPU a u8 frame pays a relayout copy the u32 view skips).
+        interleaved bytes (identical memory).
         """
         self._rendered = True
         if self._i_interleave != 0 and self.config.interleave > 0:
@@ -279,9 +278,7 @@ class CaptureHub:
             return None
 
         # host u8 frames upload as their (H, W) u32 view — identical bytes,
-        # free on the host (numpy view), and the band kernel reads the u32
-        # form directly where a u8 device array first pays a full-frame
-        # relayout copy (xprof r3, doc/performance.md)
+        # free on the host (numpy view)
         if not is_planar:
             from ..ops.convert import host_packed_view
 

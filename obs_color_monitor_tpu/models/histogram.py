@@ -61,8 +61,7 @@ class Histogram(Scope, StandaloneScopeMixin):
         # hi_max, and the draw levels (reference CPU callback work,
         # src/histogram.c:396-418) are all deferred into render_traced, so
         # the callback issues ZERO device dispatches (each eager op is a
-        # separate program execution — the per-execution round trip on a
-        # remote TPU dominated the streaming soak, doc/performance.md).
+        # separate program execution with its own dispatch).
         # n_pixels enters the render program as a TRACED scalar leaf: an
         # ROI resize changes it without rebuilding the program.
         r = surface.dynamic_rect

@@ -62,10 +62,9 @@ class Waveform(Scope, StandaloneScopeMixin):
             return
         # publish the RAW fused-pass buffer: channel selection is deferred
         # into render_traced so the callback issues ZERO device dispatches
-        # (each eager op is a separate program execution — on a remote TPU
-        # the per-execution round trip dominated the streaming soak,
-        # doc/performance.md).  Selection is config-static, so it rides the
-        # (cached) render program for free.
+        # (each eager op is a separate program execution with its own
+        # dispatch).  Selection is config-static, so it rides the (cached)
+        # render program for free.
         self._buf_width[self._w_buf] = surface.width
         if surface.dynamic_rect is not None:
             # full-width counts valid within the rect's columns (dock

@@ -2,15 +2,14 @@
 
 Replaces the reference's GPU conversion pass + staging readback
 (reference src/common.c:170-221, data/common.effect:23-43): frames stay in
-HBM, the conversion is exact 12-bit fixed point (see colorspace.py), and
-nothing ever leaves the device until a scope's tiny result is fetched.
+device memory, the conversion is exact 12-bit fixed point (see
+colorspace.py), and nothing ever leaves the device until a scope's tiny
+result is fetched.
 
-LAYOUT: the hot path is PLANAR.  Interleaved (H, W, 4) uint8 puts the
-4-wide channel axis on the TPU lane dimension — 3% lane utilization, and
-every channel extraction forces a relayout (measured 100-1000x slowdowns).
-``planarize`` converts once at ingest (~0.08 ms for 4K); every *_planes op
-consumes (C, H, W) planes.  The interleaved-signature functions remain as
-thin wrappers (tests, spec boundary).
+LAYOUT: the hot path is PLANAR.  ``planarize`` converts the interleaved
+(H, W, 4) u8 frame once at ingest; every *_planes op consumes (C, H, W)
+planes, so each channel is a contiguous plane.  The interleaved-signature
+functions remain as thin wrappers (tests, spec boundary).
 
 All functions are jittable; colorspace is static.
 """
@@ -30,10 +29,9 @@ from ..colorspace import Colorspace, FIXED_COEFFS, FIXED_SHIFT, LUMA_COEF
 def planarize(rgba: jax.Array) -> jax.Array:
     """(..., H, W, 4) u8 -> (..., 4, H, W) u8 — do this ONCE at ingest.
 
-    Via u32 bitcast + byte shifts: a transpose of the 4-wide minor axis is
-    a relayout XLA executes catastrophically slowly on TPU; reading each
-    pixel as one u32 lane and shifting out the bytes is HBM-bound
-    (~0.17 ms for 4K).  Little-endian: byte 0 (R) is the low byte.
+    Via u32 bitcast + byte shifts: each pixel is read as one u32 word and
+    the bytes are shifted out (one memory-bound pass).  Little-endian:
+    byte 0 (R) is the low byte.
     """
     x = jax.lax.bitcast_convert_type(rgba, jnp.uint32)  # (..., H, W)
     planes = [
@@ -56,9 +54,7 @@ def host_packed_view(frame):
     """Host (H, W, 4) u8 C-contiguous frame -> its (H, W) u32 packed view
     (identical bytes, free numpy view); anything else passes through.
 
-    The band kernel reads the u32 form directly where a u8 device array
-    first pays a full-frame relayout copy (doc/performance.md) — every
-    ingest entry point normalizes through here."""
+    Every ingest entry point normalizes through here."""
     import numpy as np
 
     if (
@@ -80,8 +76,8 @@ def interleave(planes: jax.Array) -> jax.Array:
 
 @jax.jit
 def planes_to_rgba(planes: jax.Array) -> jax.Array:
-    """(4, H, W) u8 -> (H, W, 4) u8 via u32 compose (planarize's inverse;
-    a direct moveaxis relayout is lane-hostile)."""
+    """(4, H, W) u8 -> (H, W, 4) u8 via u32 compose (planarize's
+    inverse)."""
     p = planes.astype(jnp.uint32)
     x32 = p[0] | (p[1] << 8) | (p[2] << 16) | (p[3] << 24)
     return jax.lax.bitcast_convert_type(x32, jnp.uint8)
@@ -93,8 +89,7 @@ def rgb_to_yuv_planes(planes: jax.Array, cs: int) -> jax.Array:
 
     Computed in float32: with the 2^12 coefficient scale every product and
     sum is an integer < 2^22 (exactly representable), so this matches the
-    golden model's int64 arithmetic bit-for-bit while using the fast f32
-    VPU path (int32 multiplies are emulated and slow on TPU).
+    golden model's int64 arithmetic bit-for-bit.
     """
     k = np.asarray(FIXED_COEFFS[Colorspace(cs)], dtype=np.float32)  # (3,4)
     half = np.float32(1 << (FIXED_SHIFT - 1))
@@ -147,7 +142,9 @@ def downscale_planes(planes: jax.Array, scale: int) -> jax.Array:
     (i + 0.5)*s - 0.5 = i*s + (s-1)/2: odd s lands exactly on a texel;
     even s is the midpoint of the middle 2x2 — out = (a+b+c+d+2)>>2,
     bit-identical to the golden model's float path.  All reshapes are
-    row-major dim splits (free in any layout); slices are static.
+    row-major dim splits; slices are static.  The column selections ride
+    bf16 select matmuls (u8 values and 0/1 selects are bf16-exact, f32
+    accumulation of at most two terms), bit-exact on every backend.
     """
     if scale <= 1:
         return planes
@@ -162,17 +159,11 @@ def downscale_planes(planes: jax.Array, scale: int) -> jax.Array:
         rows = csum.reshape(csum.shape[:-2] + (oh, scale, ow))
         return rows[..., :, a, :] + rows[..., :, a + 1, :]
 
-    # Column selection must NOT slice/stride the lane (W) axis — that forces
-    # relayouts measured at >10 ms/4K.  For the common scales the middle
-    # column pair sits inside one wider word, so a free bitcast + shifts
-    # extracts it at full lane utilization (little-endian byte order).
     if scale == 2:
-        # Column pairs ride the MXU: a bf16 matmul against the fixed 0/1
-        # pair matrix P[k, j] = [k//2 == j].  Exact: u8 values are exact in
-        # bf16, products are the values themselves, and the f32 accumulation
-        # of two terms <= 510 is exact.  Measured ~0.3 ms faster than the
-        # u16-bitcast VPU variant in the full 4K analysis pipeline (the f32
-        # output fuses into the YUV/stripe consumers).
+        # Column pairs as a bf16 matmul against the fixed 0/1 pair matrix
+        # P[k, j] = [k//2 == j].  Exact: u8 values are exact in bf16,
+        # products are the values themselves, and the f32 accumulation of
+        # two terms <= 510 is exact.
         wpad = (-x.shape[-1]) % 256
         xp = jnp.pad(x, [(0, 0)] * (x.ndim - 1) + [(0, wpad)])
         nb = xp.shape[-1] // 256
@@ -192,6 +183,7 @@ def downscale_planes(planes: jax.Array, scale: int) -> jax.Array:
         s = rows[..., :, 0, :] + rows[..., :, 1, :]
         return jnp.floor((s + 2.0) * 0.25).astype(jnp.uint8)
     if scale == 4:
+        # the middle column pair sits inside one u32 word of the block
         x32 = jax.lax.bitcast_convert_type(
             x.reshape(x.shape[:-1] + (ow, 4)), jnp.uint32
         )  # (..., H, ow); bytes 0..3 = the 4 columns of the block
@@ -203,12 +195,8 @@ def downscale_planes(planes: jax.Array, scale: int) -> jax.Array:
     a = scale // 2 - 1
     if scale % 2 == 0:
         # even scales >= 6 (the reference's target_scale goes to 128): pick
-        # the two center ROWS of each block (a free non-minor split+index),
-        # then select+sum the two center COLUMNS on the MXU with a 0/1
-        # pair matrix — the strided block-select this replaces relayouted
-        # ~0.97 ms per 4K frame at scale 16 (xprof r5: four 0.24 ms
-        # reshapes, one per channel; an intermediate byte-stream+group-sum
-        # formulation measured 0.39–0.51 ms, this one ~0.1–0.2).  Exact:
+        # the two center ROWS of each block (a non-minor split+index), then
+        # select+sum the two center COLUMNS with a 0/1 pair matrix.  Exact:
         # u8 operands are bf16-exact, each matmul output sums the two 0/1
         # column hits (<= 510, f32 accumulation), the two row products add
         # to <= 1020 in f32, and floor((s+2)/4) equals the golden (s+2)>>2.
@@ -231,11 +219,9 @@ def downscale_planes(planes: jax.Array, scale: int) -> jax.Array:
         return jnp.floor((s + 2.0) * 0.25).astype(jnp.uint8)
 
     # odd scales: the sample is a single center texel per block.  The ROW
-    # pick is a (nearly) free non-minor split+index; the COLUMN pick rides
-    # the MXU as a one-hot select — the strided lane pick this replaces
-    # relayouted 11.5 / 5.6 ms per 4K frame at scales 3 / 5 (r5 probe)
-    # against ~0.1 ms of matmul.  Exact: u8 operands are bf16-exact, the
-    # 0/1 one-hot contributes a single product per output, f32 accumulate.
+    # pick is a non-minor split+index; the COLUMN pick is a one-hot select
+    # matmul.  Exact: u8 operands are bf16-exact, the 0/1 one-hot
+    # contributes a single product per output, f32 accumulate.
     m = (scale - 1) // 2
     x_rows = x.reshape(x.shape[:-2] + (oh, scale, ow * scale))[..., :, m, :]
     sel = (
@@ -277,25 +263,20 @@ def _nv12_rgb_u8(y: jax.Array, uv: jax.Array, cs: int):
     Pure-integer fixed point, bit-identical to the native C++ kernel:
     with Y' = Y-16, C = Cx-128: channel = clip((4769*Y' + K.C + 2048)
     >> 12) (arithmetic shift = floor division).  The 4:2:0 chroma
-    upsample avoids lane-axis ``jnp.repeat`` (which XLA lowers as a
-    relayout/gather): columns double via the u16-pair bitcast trick and
-    rows via a broadcast-reshape on the sublane axis — the all-integer
-    form measured fastest of the XLA decode formulations at 4K
-    (0.69 ms vs 0.80 for the lane-repeat original, benchmarks/
-    sweep_r4c.py + sweep_r4d.py; the TPU path dispatches to the 0.34 ms
-    Pallas band kernel in ops.pallas_convert instead).
+    upsample doubles columns via a u16-pair bitcast and rows via a
+    broadcast-reshape.
     """
     kr_cr, kg_cb, kg_cr, kb_cb = _NV12_COEF[int(cs)]
     h, w = y.shape[-2], y.shape[-1]
     yp = (y.astype(jnp.int32) - 16) * _NV12_KY
-    # deinterleave CbCr via u16 bitcast (lane-friendly)
+    # deinterleave CbCr via u16 bitcast
     uv16 = jax.lax.bitcast_convert_type(
         uv.reshape(uv.shape[:-1] + (w // 2, 2)), jnp.uint16
     ).astype(jnp.int32)
     cb = (uv16 & 0xFF) - 128  # (H/2, W/2)
     cr = (uv16 >> 8) - 128
 
-    def lane2(x):  # duplicate each value into adjacent lanes, no repeat
+    def col2(x):  # duplicate each value into adjacent columns
         xu = (x + 128).astype(jnp.uint32)
         return (
             jax.lax.bitcast_convert_type(xu | (xu << 16), jnp.uint16)
@@ -304,12 +285,12 @@ def _nv12_rgb_u8(y: jax.Array, uv: jax.Array, cs: int):
             - 128
         )
 
-    def row2(x):  # double rows on the sublane axis
+    def row2(x):  # double rows
         return jnp.broadcast_to(
             x[..., :, None, :], x.shape[:-2] + (h // 2, 2, w)
         ).reshape(x.shape[:-2] + (h, w))
 
-    cb, cr = row2(lane2(cb)), row2(lane2(cr))
+    cb, cr = row2(col2(cb)), row2(col2(cr))
 
     def q(acc):
         return jnp.clip(acc >> 12, 0, 255).astype(jnp.uint8)
@@ -330,7 +311,7 @@ def nv12_to_planes(y: jax.Array, uv: jax.Array, cs: int = 2) -> jax.Array:
 
 
 @functools.partial(jax.jit, static_argnames=("cs",))
-def _nv12_to_packed_xla(y: jax.Array, uv: jax.Array, cs: int = 2) -> jax.Array:
+def _nv12_to_packed(y: jax.Array, uv: jax.Array, cs: int = 2) -> jax.Array:
     r, g, b = _nv12_rgb_u8(y, uv, cs)
     return (
         r.astype(jnp.uint32)
@@ -361,25 +342,9 @@ def _shift16_to_u8(plane: jax.Array, shift: int) -> jax.Array:
 
 
 @functools.partial(jax.jit, static_argnames=("cs", "shift"))
-def _nv12_16_to_packed_xla(y16, uv16, cs: int = 2, shift: int = 2):
-    return _nv12_to_packed_xla(
+def _nv12_16_to_packed(y16, uv16, cs: int = 2, shift: int = 2):
+    return _nv12_to_packed(
         _shift16_to_u8(y16, shift), _shift16_to_u8(uv16, shift), cs=cs
-    )
-
-
-def _nv12_pallas_ok(y, uv, lanes: int = 4) -> bool:
-    """Whether the Pallas decode path applies (TPU backend, plain 2-D
-    planes, a geometry whose u32 bitcast views exist — ``lanes`` samples
-    per u32 word: 4 for u8 planes, 2 for the 16-bit layouts)."""
-    from .fused import default_backend
-
-    return (
-        default_backend() == "pallas"
-        and getattr(y, "ndim", 0) == 2
-        and getattr(uv, "ndim", 0) == 2
-        and y.shape[-1] % lanes == 0
-        and y.shape[-2] % 2 == 0
-        and tuple(uv.shape) == (y.shape[-2] // 2, y.shape[-1])
     )
 
 
@@ -388,12 +353,11 @@ def nv12_to_packed(
 ) -> jax.Array:
     """NV12 -> the (H, W) u32 packed-RGBA view, decoded ON DEVICE.
 
-    The packed view is what every ingest route consumes zero-copy (the
-    band kernel extracts bytes itself, doc/performance.md), so NV12
-    frames can upload as 1.5 B/px instead of a host-decoded 4 B/px RGBA
-    frame — 2.7x less host->device traffic, and the fixed-point decode
-    (bit-exact twin of csrc/ocm_runtime.cpp ocm_nv12_to_rgba) rides the
-    TPU instead of the host CPU.
+    The packed view is what every ingest route consumes, so NV12 frames
+    can upload as 1.5 B/px instead of a host-decoded 4 B/px RGBA frame —
+    2.7x less host->device traffic, and the fixed-point decode (bit-exact
+    twin of csrc/ocm_runtime.cpp ocm_nv12_to_rgba) runs on the device
+    instead of the host CPU.
 
     With ``shift`` > 0 the planes are 16-bit-LE NV12-layout samples
     (P010-family u16 planes, 3 B/px) and the round-shift to the 8-bit
@@ -401,36 +365,30 @@ def nv12_to_packed(
     zero host per-pixel work for high-bit-depth capture.  Compute the
     shift with :func:`nv12_shift`; bit-exact vs the host round-shift
     policy (``pipeline.ingest`` `_to8`).
-
-    On a TPU backend this dispatches to the Pallas band kernels
-    (ops.pallas_convert, 0.37 vs 0.70 ms per 4K 8-bit frame); every
-    other backend / geometry takes the XLA formulation.  All paths are
-    bit-exact twins of the golden/native decoders.
+    Bit-exact twin of the golden/native decoders.
     """
+    h, w = y.shape[-2], y.shape[-1]
+    if h % 2 or w % 2 or tuple(uv.shape[-2:]) != (h // 2, w):
+        raise ValueError(
+            f"NV12 geometry: y {tuple(y.shape)} needs even dims and uv "
+            f"(H/2, W), got uv {tuple(uv.shape)}"
+        )
     if shift:
         if y.dtype != jnp.uint16 or uv.dtype != jnp.uint16:
             raise TypeError(
                 f"shift={shift} expects u16 wire planes, got "
                 f"{y.dtype}/{uv.dtype}"
             )
-        if _nv12_pallas_ok(y, uv, lanes=2):
-            from .pallas_convert import nv12_16_decode_pallas
-
-            return nv12_16_decode_pallas(y, uv, cs=cs, shift=shift)
-        return _nv12_16_to_packed_xla(y, uv, cs=cs, shift=shift)
+        return _nv12_16_to_packed(y, uv, cs=cs, shift=shift)
     if y.dtype != jnp.uint8 or uv.dtype != jnp.uint8:
         # a forgotten shift= on a P010-family buffer must fail loudly, not
         # decode raw 16-bit samples as if they were 8-bit (silently wrong
-        # statistics on XLA; an opaque block-rank error in the kernel)
+        # statistics)
         raise TypeError(
             f"NV12 planes must be u8 (pass shift= for 16-bit layouts), "
             f"got {y.dtype}/{uv.dtype}"
         )
-    if _nv12_pallas_ok(y, uv):
-        from .pallas_convert import nv12_decode_pallas
-
-        return nv12_decode_pallas(y, uv, cs=cs)
-    return _nv12_to_packed_xla(y, uv, cs=cs)
+    return _nv12_to_packed(y, uv, cs=cs)
 
 
 def nv12_device_planes(y, uv):
@@ -440,9 +398,9 @@ def nv12_device_planes(y, uv):
     read, a decoder output, a capture ring slot) — the y and uv planes a
     caller passes are usually adjacent VIEWS of that buffer.  Detect the
     adjacency and upload the joint (H + H/2, W) block once, then split
-    with device-side row slices (async dispatches; the copies are HBM
-    bandwidth, ~0.02 ms at 4K) — on a host interconnect that charges per
-    transfer this halves the round trips on the NV12 ingest path.  Any
+    with device-side row slices (async dispatches, memory-bound copies) —
+    on a host interconnect that charges per transfer this halves the
+    transfers on the NV12 ingest path.  Any
     non-adjacent input (or a dtype that is not u8 / u16 — the 16-bit
     NV12 layouts ride the same joint upload) falls back to two plain
     uploads.  Device-resident inputs pass through untouched.

@@ -2,10 +2,9 @@
 
 The reference's ROI hub renders/reads back a frame once and fans the mapped
 surface out to N scope callbacks, each running its own CPU loop over the
-same pixels (reference src/roi.c:315-341, src/common.c:335-373).  On TPU the
-natural design is ONE jitted function that planarizes the frame once
-(interleaved (H,W,4) u8 is lane-hostile — see ops.convert), reads it once
-from HBM, and produces every requested statistic — XLA fuses the YUV
+same pixels (reference src/roi.c:315-341, src/common.c:335-373).  Here it is
+ONE jitted function that planarizes the frame once, reads it once from
+device memory, and produces every requested statistic — XLA fuses the YUV
 conversion into all consumers and nothing is traversed twice.
 
 ``analyze`` is the single entry: static flags select which statistics are
@@ -24,22 +23,16 @@ import jax.numpy as jnp
 from .convert import (
     downscale_planes,
     planarize,
+    planarize_packed,
     rgb_to_yuv_planes,
     roi_crop_planes,
 )
 from .stats import (
-    histogram_counts,
-    vectorscope_counts_i32,
-    waveform_counts,
+    histogram_from_waveform,
     select_planes,
+    vectorscope_counts_i32,
+    waveform_counts_i32,
 )
-from . import pallas_stats
-
-
-def default_backend() -> str:
-    """'pallas' on real TPU, 'xla' elsewhere (Mosaic kernels need hardware;
-    the interpreter is for tests only)."""
-    return "pallas" if jax.default_backend() not in ("cpu",) else "xla"
 
 
 class AnalysisResult(NamedTuple):
@@ -69,7 +62,6 @@ class AnalysisResult(NamedTuple):
         "need_hi_rgb",
         "need_hi_yuv",
         "keep_rgba",
-        "backend",
         "is_planar",
         "is_packed",
     ),
@@ -85,24 +77,16 @@ def analyze(
     need_hi_rgb: bool = False,
     need_hi_yuv: bool = False,
     keep_rgba: bool = True,
-    backend: str | None = None,
     is_planar: bool = False,
     is_packed: bool = False,
-    tm: jax.Array | float | None = None,
     rect_dyn: jax.Array | None = None,
 ) -> AnalysisResult:
     """One pass: planarize -> downscale -> crop -> convert -> statistics.
 
     frame: uint8 (H, W, 4) RGBA, or (4, H, W) planar with is_planar=True,
     or the (H, W) u32 bitcast view of the interleaved frame with
-    is_packed=True (the pipeline kernel then extracts bytes itself and no
-    planarize pass exists in the program).  ``rect`` is the ROI
-    (x0, y0, x1, y1) in *scaled* coordinates (reference
-    src/common.c:273-282).  backend: 'pallas' (Mosaic kernels, TPU) or
-    'xla'; None = auto.  ``tm`` (traced scalar) does not change any result;
-    threading the caller's per-frame clock into the frame-reading Mosaic
-    kernel makes every statistic loop-variant, so benchmark/streaming loops
-    need no input-XOR anti-hoist copy (doc/performance.md Methodology).
+    is_packed=True.  ``rect`` is the ROI (x0, y0, x1, y1) in *scaled*
+    coordinates (reference src/common.c:273-282).
 
     ``rect_dyn`` is a DYNAMIC (4,) i32 ROI (x0, y0, x1, y1) in scaled
     coordinates (mutually exclusive with the static ``rect``): statistics
@@ -111,68 +95,15 @@ def analyze(
     the rect never recompiles (reference interactive drag, src/roi.c:343-521).
     ``planes``/``yuv_planes`` then stay FULL-capture (uncropped).
     """
-    if backend is None:
-        backend = default_backend()
-    pall = backend == "pallas"
-
     if is_packed:
-        planes = None  # resolved lazily: the fast path never needs it
+        planes = planarize_packed(frame)
     else:
         planes = frame if is_planar else planarize(frame)
-
-    # Fast path: the default dock/serving shape — scale 2, full frame, VS +
-    # one waveform/histogram family — runs the frame-pipeline band kernel
-    # (downscale+YUV+mask+SWAR waveform in one pass) + the tile-matmul
-    # vectorscope kernel (ops/pallas_pipeline.py, overlays disabled).
-    rgb_fam = need_wv_rgb or need_hi_rgb
-    yuv_fam = need_wv_yuv or need_hi_yuv
-    from .pallas_pipeline import pipeline_fits
-
-    if is_planar or is_packed:
-        h_in, w_in = frame.shape[-2], frame.shape[-1]
-    else:
-        h_in, w_in = frame.shape[-3], frame.shape[-2]
-    if (
-        pall
-        and rect is None
-        and need_vs
-        and (rgb_fam != yuv_fam)
-        and pipeline_fits(h_in, w_in, scale, with_overlays=False)
-    ):
-        from .pallas_pipeline import frame_pipeline
-
-        vs_i32, wv_i32, dsp, _, _, _ = frame_pipeline(
-            frame if is_packed else planes,
-            0.0 if tm is None else tm,
-            rect_dyn,
-            cs=cs, scale=scale, yuv_data=yuv_fam, with_overlays=False,
-            packed=is_packed,
-        )
-        vs = jnp.minimum(vs_i32, 255).astype(jnp.uint8)
-        wv_u8 = jnp.minimum(wv_i32, 255).astype(jnp.uint8)
-        hi = pallas_stats.histogram_from_waveform(wv_i32)
-        return AnalysisResult(
-            yuv_planes=None,
-            vs_counts=vs,
-            wv_rgb=wv_u8 if (rgb_fam and need_wv_rgb) else None,
-            wv_yuv=wv_u8 if (yuv_fam and need_wv_yuv) else None,
-            hi_rgb=hi if (rgb_fam and need_hi_rgb) else None,
-            hi_yuv=hi if (yuv_fam and need_hi_yuv) else None,
-            planes=dsp if keep_rgba else None,
-        )
-
-    if planes is None:
-        from .convert import planarize_packed
-
-        planes = planarize_packed(frame)  # slow path of is_packed
     planes = downscale_planes(planes, scale=scale)
     if rect is not None:
         planes = roi_crop_planes(planes, *rect)
 
-    # dynamic ROI on the generic path: never crop — restrict counting with
-    # an iota rect mask (waveform/histogram via the existing mask machinery;
-    # vectorscope by zeroing U/V outside and subtracting the outside count
-    # at (0,0), exactly like geometry padding)
+    # dynamic ROI: never crop — restrict counting with an iota rect mask
     in_rect = None
     if rect_dyn is not None:
         assert rect is None, "rect and rect_dyn are mutually exclusive"
@@ -185,80 +116,28 @@ def analyze(
         ri = jax.lax.broadcasted_iota(jnp.int32, (hh, ww), 0)
         ci = jax.lax.broadcasted_iota(jnp.int32, (hh, ww), 1)
         in_rect = (ri >= ry0) & (ri < ry1) & (ci >= rx0) & (ci < rx1)
-        n_out = jnp.int32(hh * ww) - (rx1 - rx0) * (ry1 - ry0)
 
     need_yuv = need_vs or need_wv_yuv or need_hi_yuv
     yuv = rgb_to_yuv_planes(planes, cs=cs) if need_yuv else None
-    # vectorscope counting source: U/V zeroed outside the dynamic rect
-    # (waveform YUV data stays unmasked — its mask argument handles the rect)
-    yuv_vs = yuv
-    if in_rect is not None and yuv is not None:
-        yuv_vs = jnp.where(in_rect[None], yuv, jnp.uint8(0))
 
-    use_fused_combo = pall and need_vs and (
-        need_wv_rgb or need_hi_rgb or need_wv_yuv or need_hi_yuv
-    )
-    if need_vs and not use_fused_combo:
-        if pall:
-            vs_i = pallas_stats.vectorscope_pallas_i32(yuv_vs)
-        else:
-            vs_i = vectorscope_counts_i32(yuv_vs)
-        if in_rect is not None:
-            vs_i = vs_i.at[0, 0].add(-n_out)
+    vs = None
+    if need_vs:
+        vs_i = vectorscope_counts_i32(yuv, in_rect)
         vs = jnp.minimum(vs_i, 255).astype(jnp.uint8)
-    else:
-        vs = None
 
-    def _wv_hi(data, mask, need_wv, need_hi):
-        wv = hi = None
-        if pall and (need_wv or need_hi):
-            wv_i32 = pallas_stats.waveform_pallas_i32(data, mask)
-            if need_wv:
-                wv = jnp.minimum(wv_i32, 255).astype(jnp.uint8)
-            if need_hi:
-                hi = pallas_stats.histogram_from_waveform(wv_i32)
-        else:
-            if need_wv:
-                wv = waveform_counts(data, mask)
-            if need_hi:
-                hi = histogram_counts(data, mask)
-        return wv, hi
-
-    wv_rgb = hi_rgb = wv_yuv = hi_yuv = None
-    fused_spent = False
-    if need_wv_rgb or need_hi_rgb:
-        data, mask = select_planes(planes, None, is_yuv=False)
+    def _wv_hi(is_yuv, need_wv, need_hi):
+        if not (need_wv or need_hi):
+            return None, None
+        data, mask = select_planes(planes, yuv, is_yuv=is_yuv)
         if in_rect is not None:
             mask = mask & in_rect
-        if use_fused_combo:
-            # the dock's hot combo: one kernel, one DMA pass for VS + counts
-            vs_i32, wv_i32 = pallas_stats.fused_vs_wv_pallas_i32(data, yuv_vs, mask)
-            if in_rect is not None:
-                vs_i32 = vs_i32.at[0, 0].add(-n_out)
-            vs = jnp.minimum(vs_i32, 255).astype(jnp.uint8)
-            fused_spent = True
-            if need_wv_rgb:
-                wv_rgb = jnp.minimum(wv_i32, 255).astype(jnp.uint8)
-            if need_hi_rgb:
-                hi_rgb = pallas_stats.histogram_from_waveform(wv_i32)
-        else:
-            wv_rgb, hi_rgb = _wv_hi(data, mask, need_wv_rgb, need_hi_rgb)
-    if need_wv_yuv or need_hi_yuv:
-        data, mask = select_planes(planes, yuv, is_yuv=True)
-        if in_rect is not None:
-            mask = mask & in_rect
-        if use_fused_combo and not fused_spent:
-            vs_i32, wv_i32 = pallas_stats.fused_vs_wv_pallas_i32(data, yuv_vs, mask)
-            if in_rect is not None:
-                vs_i32 = vs_i32.at[0, 0].add(-n_out)
-            vs = jnp.minimum(vs_i32, 255).astype(jnp.uint8)
-            if need_wv_yuv:
-                wv_yuv = jnp.minimum(wv_i32, 255).astype(jnp.uint8)
-            if need_hi_yuv:
-                hi_yuv = pallas_stats.histogram_from_waveform(wv_i32)
-        else:
-            wv_yuv, hi_yuv = _wv_hi(data, mask, need_wv_yuv, need_hi_yuv)
+        # the histogram is the waveform's column sum (identical counting)
+        wv_i32 = waveform_counts_i32(data, mask)
+        wv = jnp.minimum(wv_i32, 255).astype(jnp.uint8) if need_wv else None
+        return wv, histogram_from_waveform(wv_i32) if need_hi else None
 
+    wv_rgb, hi_rgb = _wv_hi(False, need_wv_rgb, need_hi_rgb)
+    wv_yuv, hi_yuv = _wv_hi(True, need_wv_yuv, need_hi_yuv)
     return AnalysisResult(
         yuv_planes=yuv,
         vs_counts=vs,

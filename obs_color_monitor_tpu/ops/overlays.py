@@ -2,10 +2,9 @@
 
 These are pure per-pixel GPU shaders in the reference with no readback
 (SURVEY.md §3.3); here they are fused elementwise/stencil jit functions over
-HBM-resident PLANAR frames (see ops.convert docstring for why planar).
+device-resident PLANAR frames (see ops.convert docstring for why planar).
 Luma thresholds use the same 2^12 fixed point as the golden model — carried
-in integer-valued float32 (exact below 2^24; avoids the TPU's emulated int32
-multiply).
+in integer-valued float32 (exact below 2^24).
 
 Planar functions take (4, H, W) u8 and return (4, H, W) u8; the interleaved
 (H, W, 4) wrappers exist for the spec/test boundary.
@@ -68,15 +67,14 @@ def falsecolor_planes(planes: jax.Array, cs: int) -> jax.Array:
     """12-band false color (reference data/falsecolor.effect:38-61).
 
     The cascade is a monotone threshold ladder, so each channel is a chain
-    of 11 selects on the f32 luma — no per-pixel gather (XLA TPU gathers
-    were ~10x the cost of the whole op).
+    of 11 selects on the f32 luma — no per-pixel gather.
     """
     luma = luma_planes(planes, cs=cs)  # (H, W) f32
     chans = []
     for c in range(4):
         # walking the ladder top-down, a select is only needed where the
         # channel value CHANGES between adjacent bands (e.g. the alpha
-        # channel is constant: zero selects) — ~2x fewer VPU selects
+        # channel is constant: zero selects) — ~2x fewer selects
         out = jnp.full(luma.shape, _BAND_COLORS[-1][c], jnp.uint8)
         prev_val = int(_BAND_COLORS[-1][c])
         for i in range(len(_BAND_THRESH) - 1, -1, -1):

@@ -44,9 +44,8 @@ def _scale_q12(v: jax.Array, coef_q12) -> jax.Array:
 
 def _compose_rgba(r: jax.Array, g: jax.Array, b: jax.Array) -> jax.Array:
     """Three (H, W) channel planes (int values 0..255) -> (H, W, 4) u8 with
-    alpha 255, via one u32 compose + bitcast.  Stacking channels onto the
-    minor axis directly (moveaxis/stack) forces lane relayouts XLA executes
-    slowly; the u32 route is HBM-bound (same trick as convert.planarize)."""
+    alpha 255, via one u32 compose + bitcast (same trick as
+    convert.planarize)."""
     x = (
         r.astype(jnp.uint32)
         | (g.astype(jnp.uint32) << 8)
@@ -174,9 +173,13 @@ def render_histogram(
     H = level_height
     lv = levels[jnp.asarray(order)]  # (3, 256) display-ordered
     hm = hi_max[jnp.asarray(order)]
-    thr = (
-        1.0
-        - (jax.lax.broadcasted_iota(jnp.float32, (H, 1), 0) + np.float32(0.5))
+    # the row thresholds are a host constant: computed on device, XLA may
+    # rewrite the division (e.g. as a reciprocal multiply) and move a
+    # threshold by one ulp, which flips the fill test where a level sits
+    # exactly on it
+    thr = jnp.asarray(
+        np.float32(1.0)
+        - (np.arange(H, dtype=np.float32)[:, None] + np.float32(0.5))
         / np.float32(H)
     )  # (H, 1)
     # fill[c, row, col] = lv[c, col] >= thr[row] * hm[c]

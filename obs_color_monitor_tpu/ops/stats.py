@@ -1,28 +1,28 @@
-"""Statistics accumulators as MXU matmuls (XLA path, planar).
+"""Statistics accumulators as int32 scatter-adds (planar).
 
 The reference computes these with per-pixel scalar scatter loops on the CPU
 after a GPU->CPU readback (src/vectorscope.c:217-238, src/waveform.c:220-257,
-src/histogram.c:357-395).  A data-dependent scatter is the one thing TPUs
-refuse to do fast — so none of these are scatters here:
+src/histogram.c:357-395).  Here the same counting runs on device as
+``.at[].add`` scatters into int32 bins, which XLA lowers to atomic adds:
 
-  * histogram (256 bins)   = 16x16 outer product of nibble one-hots,
-                             ``A_hi^T @ A_lo`` on the MXU (int8 -> int32);
-  * vectorscope (256x256)  = ``one_hot(U)^T @ one_hot(V)`` — a perfectly
-                             MXU-shaped (256 x N) @ (N x 256) matmul,
-                             scanned over pixel chunks;
-  * waveform (256 x W)     = masked one-hot row-reduction, scanned over
-                             row blocks (columns ride the lane axis).
+  * vectorscope (256x256)  = one scatter into 32 private copies of the
+                             bins, the copy chosen by the pixel's column,
+                             summed after — a flat field's updates spread
+                             over 32 addresses instead of one;
+  * waveform (256 x W)     = one scatter into (channel, value, column)
+                             bins — already spread over W columns;
+  * histogram (256 bins)   = the waveform's column sum (identical counting
+                             semantics; cheaper than a 768-bin scatter,
+                             whose flat-field contention is extreme).
 
-All counts are exact int32 (one-hot entries are 0/1; int8 x int8 -> int32
-accumulation is exact), then saturated exactly like the reference
-(u8 min-255 for vectorscope/waveform — saturating increment commutes with
-counting — and u32 for the histogram).
+The form of each was chosen on an H100 against the earlier one-hot matmul
+forms, on random content and on a flat field (PERF.md, Findings).  All
+counts are exact int32 (sums do not depend on order), then saturated exactly
+like the reference (u8 min-255 for vectorscope/waveform — saturating
+increment commutes with counting — and u32 for the histogram).
 
-Inputs are PLANAR: value planes (C, H, W) u8 + mask (H, W) (see ops.convert
-for the layout rationale).  Single-frame; batch via jax.vmap.
-
-This is the portable XLA path; ops.pallas_stats holds the hand-scheduled
-TPU kernels (selected by ops.fused.analyze on TPU backends).
+Inputs are PLANAR: value planes (C, H, W) u8 + mask (H, W).  Single-frame;
+batch via jax.vmap.
 """
 
 from __future__ import annotations
@@ -37,18 +37,8 @@ VS_SIZE = 256
 WV_SIZE = 256
 HI_SIZE = 256
 
-# Pixels per vectorscope matmul chunk (scanned: constant compile time).
-_VS_CHUNK = 8192
-# Rows per waveform reduction block.
-_WV_ROWS = 8
-# Pixels per histogram matmul chunk.
-_HI_CHUNK = 65536
-
-
-def _one_hot_u8(vals: jax.Array, n: int, dtype=jnp.int8) -> jax.Array:
-    """(...,) u8 -> (..., n) 0/1 one-hot via iota compare (no scatter)."""
-    iota = jax.lax.broadcasted_iota(jnp.int32, vals.shape + (n,), vals.ndim)
-    return (vals.astype(jnp.int32)[..., None] == iota).astype(dtype)
+# Private copies of the vectorscope bins (chosen by column, summed after).
+_VS_COPIES = 32
 
 
 # ---------------------------------------------------------------------------
@@ -61,38 +51,14 @@ def histogram_counts(planes: jax.Array, mask: jax.Array) -> jax.Array:
 
     planes: uint8 (3, H, W); mask: bool (H, W) — pixels with alpha==0 are
     skipped (reference src/histogram.c:385-387).  Returns uint32 (3, 256).
-
-    Nibble decomposition: count[b] = sum_p 1[hi(v_p)=hi(b)] * 1[lo(v_p)=lo(b)]
-    -> a (16 x N) @ (N x 16) matmul per channel, int8 on the MXU, scanned
-    over fixed-size pixel chunks (masked padding contributes nothing).
     """
-    flat = planes.reshape(3, -1)
-    n = flat.shape[1]
-    pad = (-n) % _HI_CHUNK
-    m = jnp.pad(mask.reshape(-1), (0, pad)).astype(jnp.int8)
-    flat = jnp.pad(flat, ((0, 0), (0, pad)))
-    nchunks = (n + pad) // _HI_CHUNK
-    flat = flat.reshape(3, nchunks, _HI_CHUNK).swapaxes(0, 1)  # (chunks, 3, N)
-    m = m.reshape(nchunks, _HI_CHUNK)
+    return histogram_from_waveform(waveform_counts_i32(planes, mask))
 
-    def body(acc, args):
-        d, mm = args  # (3, N), (N,)
-        outs = []
-        for c in range(3):
-            hi = _one_hot_u8(d[c] >> 4, 16) * mm[:, None]
-            lo = _one_hot_u8(d[c] & 15, 16)
-            c16 = jax.lax.dot_general(
-                hi,
-                lo,
-                dimension_numbers=(((0,), (0,)), ((), ())),
-                preferred_element_type=jnp.int32,
-            )
-            outs.append(c16.reshape(HI_SIZE))
-        return acc + jnp.stack(outs), None
 
-    acc0 = jnp.zeros((3, HI_SIZE), jnp.int32)
-    acc, _ = jax.lax.scan(body, acc0, (flat, m))
-    return acc.astype(jnp.uint32)
+def histogram_from_waveform(wv_i32: jax.Array) -> jax.Array:
+    """(C, 256, W) i32 waveform counts -> (C, 256) u32 histogram; the
+    counting semantics are identical (same values, same alpha skip)."""
+    return wv_i32.sum(axis=-1).astype(jnp.uint32)
 
 
 @functools.partial(
@@ -149,39 +115,26 @@ def histogram_levels(
 # ---------------------------------------------------------------------------
 
 @jax.jit
-def vectorscope_counts_i32(yuv_planes: jax.Array) -> jax.Array:
-    """Unsaturated int32 vectorscope counts (for cross-device psum merges:
-    saturation must happen AFTER the merge to stay bit-exact).
+def vectorscope_counts_i32(
+    yuv_planes: jax.Array, mask: jax.Array | None = None
+) -> jax.Array:
+    """Unsaturated int32 vectorscope counts[v, u] (for cross-device psum
+    merges: saturation must happen AFTER the merge to stay bit-exact).
 
-    yuv_planes: uint8 (3, H, W) in Y,U,V plane order.
+    yuv_planes: uint8 (3, H, W) in Y,U,V plane order; mask: optional bool
+    (H, W) restricting which pixels count (the dynamic ROI), None = all.
     """
-    u = yuv_planes[1].reshape(-1)
-    v = yuv_planes[2].reshape(-1)
-    n = u.shape[0]
-    pad = (-n) % _VS_CHUNK
-    valid = jnp.arange(n + pad, dtype=jnp.int32) < n
-    u = jnp.pad(u, (0, pad))
-    v = jnp.pad(v, (0, pad))
-    nchunks = (n + pad) // _VS_CHUNK
-    u = u.reshape(nchunks, _VS_CHUNK)
-    v = v.reshape(nchunks, _VS_CHUNK)
-    valid = valid.reshape(nchunks, _VS_CHUNK)
-
-    def body(acc, args):
-        uc, vc, mc = args
-        a = _one_hot_u8(uc, VS_SIZE) * mc[:, None].astype(jnp.int8)
-        b = _one_hot_u8(vc, VS_SIZE)
-        acc = acc + jax.lax.dot_general(
-            b,
-            a,
-            dimension_numbers=(((0,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32,
-        )
-        return acc, None
-
-    acc0 = jnp.zeros((VS_SIZE, VS_SIZE), jnp.int32)
-    acc, _ = jax.lax.scan(body, acc0, (u, v, valid))
-    return acc
+    u = yuv_planes[1].astype(jnp.int32)
+    v = yuv_planes[2].astype(jnp.int32)
+    copy = jax.lax.broadcasted_iota(jnp.int32, u.shape, u.ndim - 1) % _VS_COPIES
+    idx = (v * VS_SIZE + u) * _VS_COPIES + copy
+    upd = 1 if mask is None else mask.astype(jnp.int32).reshape(-1)
+    bins = (
+        jnp.zeros(VS_SIZE * VS_SIZE * _VS_COPIES, jnp.int32)
+        .at[idx.reshape(-1)]
+        .add(upd, mode="promise_in_bounds")
+    )
+    return bins.reshape(VS_SIZE, VS_SIZE, _VS_COPIES).sum(axis=-1)
 
 
 @jax.jit
@@ -202,26 +155,19 @@ def vectorscope_counts(yuv_planes: jax.Array) -> jax.Array:
 def waveform_counts_i32(planes: jax.Array, mask: jax.Array) -> jax.Array:
     """Unsaturated int32 waveform counts (for cross-device psum merges).
 
-    planes: uint8 (3, H, W); mask: bool (H, W).
+    planes: uint8 (C, H, W); mask: bool (H, W).  Returns (C, 256, W).
     """
-    h, w = planes.shape[1], planes.shape[2]
-    pad = (-h) % _WV_ROWS
-    datap = jnp.pad(planes, ((0, 0), (0, pad), (0, 0)))
-    maskp = jnp.pad(mask, ((0, pad), (0, 0)))
-    nblk = (h + pad) // _WV_ROWS
-    datap = datap.reshape(3, nblk, _WV_ROWS, w).swapaxes(0, 1)  # (blk, 3, R, W)
-    maskp = maskp.reshape(nblk, _WV_ROWS, w)
-
-    def body(acc, args):
-        d, m = args  # (3, R, W), (R, W)
-        oh = _one_hot_u8(d, WV_SIZE)  # (3, R, W, 256)
-        oh = oh * m[None, :, :, None].astype(jnp.int8)
-        acc = acc + jnp.moveaxis(oh.sum(axis=1, dtype=jnp.int32), -1, 1)
-        return acc, None
-
-    acc0 = jnp.zeros((3, WV_SIZE, w), jnp.int32)
-    acc, _ = jax.lax.scan(body, acc0, (datap, maskp))
-    return acc
+    c, w = planes.shape[0], planes.shape[2]
+    ch = jax.lax.broadcasted_iota(jnp.int32, planes.shape, 0)
+    col = jax.lax.broadcasted_iota(jnp.int32, planes.shape, 2)
+    idx = (ch * WV_SIZE + planes.astype(jnp.int32)) * w + col
+    upd = jnp.broadcast_to(mask, planes.shape).astype(jnp.int32)
+    return (
+        jnp.zeros(c * WV_SIZE * w, jnp.int32)
+        .at[idx.reshape(-1)]
+        .add(upd.reshape(-1), mode="promise_in_bounds")
+        .reshape(c, WV_SIZE, w)
+    )
 
 
 @jax.jit

@@ -2,15 +2,15 @@
 
 The reference is a single-process single-GPU pipeline; its only concurrency
 is the staging-thread handoff (SURVEY.md §2 parallelism table).  The
-TPU-native scaling story is:
+multi-device scaling story is:
 
   * **Batch data-parallel** — independent frames sharded on the batch axis
     over a Mesh; zero collectives (per-frame results are tiny and land
     where the frame lives).  This is how multi-stream / offline analysis
-    scales over ICI.
+    scales over devices.
   * **Spatial sharding (one giant stream)** — a single frame's rows sharded
     over devices via shard_map; each device computes *partial* integer bin
-    counts on its row block and a single ``psum`` over ICI merges them.
+    counts on its row block and a single ``psum`` merges them.
     Saturation is applied after the merge, so results are bit-exact vs the
     single-device path (sums commute; u8 clamp does not).
 
@@ -29,9 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from ..ops import pallas_stats
 from ..ops.convert import planarize, rgb_to_yuv_planes
-from ..ops.fused import default_backend
 from ..ops.stats import vectorscope_counts_i32, waveform_counts_i32
 
 BATCH_AXIS = "batch"
@@ -66,24 +64,22 @@ def batch_analyze(
     frames: jax.Array,
     mesh: Mesh,
     cs: int,
-    backend: str | None = None,
     components: str = "rgb",
 ):
     """Pure batch-DP: vmap the fused stats over sharded frames.
 
     Returns (vs_counts (B,256,256) u8, hist (B,3,256) u32,
     waveform (B,3,256,W) u8) with outputs sharded like the inputs.
-    backend None = auto (Pallas kernels on TPU, XLA elsewhere);
     components selects the waveform/histogram data family (see _family).
     """
 
-    @functools.partial(jax.jit, static_argnames=("cs_", "backend_", "comp_"))
-    def run(f, cs_, backend_, comp_):
+    @functools.partial(jax.jit, static_argnames=("cs_", "comp_"))
+    def run(f, cs_, comp_):
         def one(frame):
             planes = planarize(frame)
             yuv = rgb_to_yuv_planes(planes, cs=cs_)
             data, mask = _family(planes, yuv, comp_)
-            vs, wv = _stats_i32(data, yuv, mask, backend_)
+            vs, wv = _stats_i32(data, yuv, mask)
             return (
                 jnp.minimum(vs, 255).astype(jnp.uint8),
                 wv.sum(axis=-1).astype(jnp.uint32),
@@ -96,18 +92,13 @@ def batch_analyze(
         return run(
             shard_batch(frames, mesh),
             cs_=cs,
-            backend_=backend or default_backend(),
             comp_=components,
         )
 
 
-def _stats_i32(data, yuv, mask, backend: str):
-    """Unsaturated (vs (256,256), wv (3,256,W)) int32 via the selected
-    backend — on real TPU the Mosaic kernels run inside shard_map/vmap too,
-    so the sharded paths get the same speed-of-light formulation as the
-    single-chip step.  data: (3, H, W) waveform family planes."""
-    if backend == "pallas":
-        return pallas_stats.fused_vs_wv_pallas_i32(data, yuv, mask)
+def _stats_i32(data, yuv, mask):
+    """Unsaturated (vs (256,256), wv (3,256,W)) int32 — the same ops as
+    the single-device step.  data: (3, H, W) waveform family planes."""
     return vectorscope_counts_i32(yuv), waveform_counts_i32(data, mask)
 
 
@@ -115,7 +106,6 @@ def spatial_analyze(
     frame: jax.Array,
     mesh: Mesh,
     cs: int,
-    backend: str | None = None,
     components: str = "rgb",
 ):
     """One frame, rows sharded over the mesh; partial bins psum-merged.
@@ -130,15 +120,14 @@ def spatial_analyze(
     h = frame.shape[0]
     if h % n:
         raise ValueError(f"height {h} not divisible by mesh size {n}")
-    backend = backend or default_backend()
 
     def shard_fn(f):
         # f: (H/n, W, 4) — this device's row block
         planes = planarize(f)
         yuv = rgb_to_yuv_planes(planes, cs=cs)
         data, mask = _family(planes, yuv, components)
-        vs, wv = _stats_i32(data, yuv, mask, backend)
-        # merge partial integer counts over ICI, THEN saturate
+        vs, wv = _stats_i32(data, yuv, mask)
+        # merge partial integer counts across devices, THEN saturate
         vs = jax.lax.psum(vs, axis)
         wv = jax.lax.psum(wv, axis)
         return (
@@ -152,9 +141,9 @@ def spatial_analyze(
         mesh=mesh,
         in_specs=P(axis),
         out_specs=(P(), P(), P()),
-        # the scan carries inside the stat kernels start as unvarying zeros;
+        # the accumulators inside the stat ops start as unvarying zeros;
         # skip the varying-manual-axes check rather than threading pvary
-        # through backend-shared code
+        # through code shared with the single-device step
         check_vma=False,
     )
     return jax.jit(fn)(frame)
@@ -173,7 +162,6 @@ def spatial_pipeline(
     fc_cs: int | None = None,
     peak_th: int = 3062,
     peak_rgba: tuple[int, int, int, int] = (255, 0, 0, 255),
-    backend: str | None = None,
 ):
     """The FULL fused pass, rows sharded: stats psum-merged AND the three
     overlay scopes computed in place on each device's row block.
@@ -188,7 +176,7 @@ def spatial_pipeline(
         phase is additive in integers, so each device folds its row offset
         into the traced tm (no gather, no iota rebasing).
       * false color — pointwise, shards trivially.
-      * focus peaking — a 1-row halo exchange over ICI
+      * focus peaking — a 1-row halo exchange between devices
         (``jax.lax.ppermute``): each device receives its neighbours'
         boundary rows, runs the stencil on the 2-row-extended block, and
         keeps the interior.  The mesh-edge devices substitute a copy of
@@ -213,7 +201,6 @@ def spatial_pipeline(
     if h % n:
         raise ValueError(f"height {h} not divisible by mesh size {n}")
     hb = h // n
-    backend = backend or default_backend()
     zcs = cs if zb_cs is None else zb_cs
     fcs = cs if fc_cs is None else fc_cs
 
@@ -221,7 +208,7 @@ def spatial_pipeline(
         planes = planarize(f)  # (4, hb, W)
         yuv = rgb_to_yuv_planes(planes, cs=cs)
         data, mask = _family(planes, yuv, components)
-        vs, wv = _stats_i32(data, yuv, mask, backend)
+        vs, wv = _stats_i32(data, yuv, mask)
         vs = jax.lax.psum(vs, axis)
         wv = jax.lax.psum(wv, axis)
 

@@ -3,7 +3,7 @@
 The reference pipeline is: graphics thread renders + stages (GPU->CPU copy
 enqueued), a per-source pthread maps the staging surface and runs the CPU
 accumulators, results publish through a double buffer (reference
-src/common.c:223-403, SURVEY.md §3.2).  The TPU-native equivalent keeps the
+src/common.c:223-403, SURVEY.md §3.2).  The device-side equivalent keeps the
 same *shape* — producer, bounded queue with drop, consumer, double-buffered
 publication — but the consumer merely *dispatches* the fused device pass
 (JAX is async; the device runs ahead of the host) and publication happens
@@ -36,8 +36,8 @@ class NV12Frame(NamedTuple):
     queue — push_nv12 stages the upload on the PRODUCER thread, the
     analog of the reference's graphics thread staging the texture while
     the pipeline thread still works the previous frame
-    (src/common.c:335-403); the measured transfer/compute overlap
-    (doc/performance.md 'Upload overlap') is what makes that free."""
+    (src/common.c:335-403), so the transfer overlaps the previous frame's
+    device work."""
 
     y: object
     uv: object
@@ -149,11 +149,11 @@ class PipelineDriver:
 
     def push_nv12(self, y, uv, cs: Optional[int] = None, shift: int = 0) -> bool:
         """Enqueue a wire-format NV12/P010 frame (raw planes, decode on
-        device — see Dock.push_nv12).  The host→HBM upload is issued HERE,
-        on the producer thread, before the frame enters the queue: the
+        device — see Dock.push_nv12).  The host→device upload is issued
+        HERE, on the producer thread, before the frame enters the queue: the
         transfer overlaps whatever program the worker's previous frame is
-        running (measured: doc/performance.md 'Upload overlap'), which is
-        the reference's stage-on-the-graphics-thread pattern
+        running, which is the reference's stage-on-the-graphics-thread
+        pattern
         (src/common.c:335-403).  Non-blocking; False = dropped."""
         if self._native_queue_shape is not None:
             raise ValueError(
@@ -228,9 +228,7 @@ class PipelineDriver:
         device results are synced.  The sync is ``block_until_ready`` —
         correctness never depends on it (JAX arrays are futures: any later
         read blocks until the real value), it only bounds WHEN in-flight
-        device work finishes; on runtimes where block_until_ready is a
-        weak fence (see doc/performance.md Methodology) a caller needing a
-        hard completion bound should fetch a result instead."""
+        device work finishes."""
         import time
 
         t0 = time.monotonic()

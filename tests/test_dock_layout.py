@@ -326,8 +326,8 @@ def test_dock_step_panel_parity_per_scope_colorspace(dock_frame):
 
 def test_dock_render_single_fetch(dock_frame, monkeypatch):
     """Dock.render composites on device and fetches the panel ONCE — scope
-    images never individually cross the host boundary (round-1 did ~8
-    transfers per panel)."""
+    images never individually cross the host boundary (one transfer per
+    panel, not one per scope)."""
     import jax
     import numpy as np
 

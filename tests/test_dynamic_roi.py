@@ -29,14 +29,14 @@ RECTS = [(10, 8, 50, 40), (0, 0, 80, 60), (5, 5, 75, 55), (79, 59, 80, 60)]
 
 
 def test_analyze_rect_dyn_matches_static_crop(frame):
-    """XLA slow path: mask-based dynamic rect == static crop, both families."""
+    """Mask-based dynamic rect == static crop, both families."""
     planes = planarize(frame)
     for yuv in (False, True):
         kw = dict(
             cs=2, scale=2, need_vs=True,
             need_wv_rgb=not yuv, need_wv_yuv=yuv,
             need_hi_rgb=not yuv, need_hi_yuv=yuv,
-            keep_rgba=True, is_planar=True, backend="xla",
+            keep_rgba=True, is_planar=True,
         )
         for r in RECTS:
             a_s = analyze(planes, rect=r, **kw)
@@ -58,61 +58,68 @@ def test_analyze_rect_dyn_matches_static_crop(frame):
             assert a_d.planes.shape == (4, 60, 80)
 
 
-def test_frame_pipeline_rect_dyn(frame):
-    """The Mosaic band kernel's SMEM rect masks (interpret mode) produce
-    the statically-cropped statistics exactly."""
-    from obs_color_monitor_tpu.ops.pallas_pipeline import frame_pipeline
-
+def test_analyze_rect_dyn_scales_and_families(frame):
+    """The dynamic rect at scale 2 (RGB family) and scale 1 (YUV family):
+    counts equal the statically cropped analysis, and the kept planes are
+    the full capture."""
     planes = planarize(frame)
     for scale, yuv in ((2, False), (1, True)):
         kw = dict(
             cs=2, scale=scale, need_vs=True,
             need_wv_rgb=not yuv, need_wv_yuv=yuv,
             need_hi_rgb=not yuv, need_hi_yuv=yuv,
-            keep_rgba=False, is_planar=True, backend="xla",
+            keep_rgba=True, is_planar=True,
         )
         sw = 160 // scale
         for r in [(10, 8, 50, 40), (0, 0, sw, 120 // scale)]:
             a_s = analyze(planes, rect=r, **kw)
-            vs, wv, dsp, _, _, _ = frame_pipeline(
-                planes, 0.25, jnp.asarray(r, jnp.int32),
-                cs=2, scale=scale, yuv_data=yuv, with_overlays=False,
-                packed=False, interpret=True,
-            )
+            a_d = analyze(planes, rect_dyn=jnp.asarray(r, jnp.int32), **kw)
             np.testing.assert_array_equal(
-                np.minimum(np.asarray(vs), 255).astype(np.uint8),
-                np.asarray(a_s.vs_counts),
+                np.asarray(a_d.vs_counts), np.asarray(a_s.vs_counts)
             )
             wv_s = a_s.wv_yuv if yuv else a_s.wv_rgb
+            wv_d = a_d.wv_yuv if yuv else a_d.wv_rgb
             np.testing.assert_array_equal(
-                np.minimum(np.asarray(wv), 255).astype(np.uint8)[
-                    :, :, r[0] : r[2]
-                ],
-                np.asarray(wv_s),
+                np.asarray(wv_d)[:, :, r[0] : r[2]], np.asarray(wv_s)
             )
-            assert dsp.shape == (4, 120 // scale, sw)  # full capture
+            hi_s = a_s.hi_yuv if yuv else a_s.hi_rgb
+            hi_d = a_d.hi_yuv if yuv else a_d.hi_rgb
+            np.testing.assert_array_equal(np.asarray(hi_d), np.asarray(hi_s))
+            assert a_d.planes.shape == (4, 120 // scale, sw)  # full capture
 
 
-def test_fused_overlays_rect_parity(frame):
-    """In-rect overlay pixels == the cropped frame's overlays: zebra stripe
-    phase anchors at the rect origin, focus-peaking edges clamp at the rect
-    borders, false color is position-free."""
-    from obs_color_monitor_tpu.ops.pallas_overlays import fused_overlays_planes
+def test_overlay_rect_parity_vs_golden(frame):
+    """In-rect overlay pixels == the golden overlays of the cropped frame:
+    the zebra stripe phase anchors at the rect origin (tm shift), focus
+    peaking clamps at the rect borders, false color is position-free."""
+    from obs_color_monitor_tpu import golden
+    from obs_color_monitor_tpu.colorspace import Colorspace
+    from obs_color_monitor_tpu.golden.reference import (
+        peaking_threshold_fixed,
+        quantize_unorm8,
+    )
+    from obs_color_monitor_tpu.ops import overlays as ov
 
     planes = planarize(frame)
-    kw = dict(th_low=0.6, th_high=0.95, zb_cs=2, fc_cs=1, peak_th=2000,
-              peak_rgba=(255, 0, 0, 255))
+    pk_col = (1.0, 0.0, 0.0, 1.0)
+    pc = jnp.asarray(quantize_unorm8(np.asarray(pk_col, np.float32)))
+    pk_th = peaking_threshold_fixed(0.05)
     tm = 3.7
     for r in [(15, 7, 150, 100), (0, 0, 160, 120), (100, 80, 160, 120)]:
         x0, y0, x1, y1 = r
-        crop = planes[:, y0:y1, x0:x1]
-        ref = fused_overlays_planes(crop, tm, interpret=True, **kw)
-        dyn = fused_overlays_planes(
-            planes, tm, rect=jnp.asarray(r, jnp.int32), interpret=True, **kw
-        )
-        for a, b in zip(ref, dyn):
+        crop = frame[y0:y1, x0:x1]
+        zb = ov.zebra_planes(planes, th_low=0.6, th_high=0.95,
+                             tm=tm - (x0 + y0), cs=2)
+        fc = ov.falsecolor_planes(planes, cs=1)
+        fp = ov.focus_peaking_planes(planes, pk_th, pc,
+                                     rect=jnp.asarray(r, jnp.int32))
+        for got, want in (
+            (zb, golden.zebra(crop, 0.6, 0.95, tm, Colorspace.BT709)),
+            (fc, golden.falsecolor(crop, Colorspace.BT601)),
+            (fp, golden.focus_peaking(crop, 0.05, pk_col)),
+        ):
             np.testing.assert_array_equal(
-                np.asarray(b)[:, y0:y1, x0:x1], np.asarray(a)
+                np.moveaxis(np.asarray(got), 0, -1)[y0:y1, x0:x1], want
             )
 
 

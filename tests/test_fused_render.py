@@ -3,8 +3,7 @@
 When every shown scope exposes its published buffers
 (render_leaves/render_traced), the dock fuses all scope renders + the
 composite into ONE cached jitted program — a single device dispatch per
-panel (the per-dispatch overhead dominated the 320x180 soak,
-doc/performance.md).  These tests pin (a) pixel parity with the legacy
+panel.  These tests pin (a) pixel parity with the legacy
 per-scope route, (b) program reuse across frames, (c) rebuild on config
 change, (d) recompile-free ROI drag through the fused route.
 """

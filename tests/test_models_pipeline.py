@@ -150,7 +150,7 @@ def test_driver_fed_dock_rides_stream_route(rng):
     published statistics bit-match a directly-driven dock on the same
     frame sequence.  The reference has ONE pipeline regardless of sink
     (src/common.c:375-403); this pins that the queue/thread capability
-    and the fast streaming path COMPOSE (VERDICT r4 weak-5)."""
+    and the fast streaming path COMPOSE."""
     from obs_color_monitor_tpu.config import DockConfig
 
     frames = []
@@ -305,8 +305,7 @@ def test_driver_push_nv12_stages_on_producer_side(rng):
     """push_nv12 issues the plane upload BEFORE the frame enters the
     queue (the reference's graphics-thread staging, common.c:335-403):
     the queued NV12Frame must hold device arrays, not host numpy — so the
-    transfer overlaps whatever the worker is running, per the measured
-    overlap contract (doc/performance.md 'Upload overlap')."""
+    transfer overlaps whatever the worker is running."""
     import jax
 
     from obs_color_monitor_tpu.pipeline import NV12Frame

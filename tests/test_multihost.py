@@ -1,7 +1,7 @@
 """Multi-host (multi-process) distributed backend, executed for real.
 
 The reference is single-process (SURVEY §5: multi-machine = independent
-OBS processes); the TPU-native mapping is a `jax.distributed` pod where
+OBS processes); the multi-device mapping is a `jax.distributed` cluster where
 each host ingests its own frames and the mesh makes the fleet one logical
 device array.  This test actually RUNS that path: two OS processes, a
 localhost coordinator, 2 CPU devices per process, Gloo cross-process
@@ -16,7 +16,6 @@ import subprocess
 import sys
 from pathlib import Path
 
-import pytest
 
 
 def _free_port() -> int:
@@ -27,10 +26,6 @@ def _free_port() -> int:
     return port
 
 
-@pytest.mark.skipif(
-    bool(os.environ.get("OCM_TEST_TPU")),
-    reason="multi-process CPU run; hardware suite is single-chip",
-)
 def test_two_process_distributed_bitexact():
     worker = Path(__file__).with_name("_multihost_worker.py")
     port = _free_port()

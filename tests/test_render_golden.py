@@ -49,3 +49,24 @@ def test_histogram_render_golden(rng, display, n, yuv):
         )
     )
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("level_height", [200, 64, 2048])
+def test_histogram_render_threshold_ties(level_height):
+    """Levels sitting EXACTLY on a row threshold (thr[row] * hi_max in f32)
+    fill identically on device and in golden: the thresholds are one f32
+    expression on both sides, so a tie cannot flip by an ulp."""
+    H = level_height
+    thr = np.float32(1.0) - (
+        np.arange(H, dtype=np.float32) + np.float32(0.5)
+    ) / np.float32(H)
+    hi = np.asarray([160.0, 4000.0, 999.0], np.float32)
+    rows = np.arange(256) % H
+    levels = (thr[rows][None, :] * hi[:, None]).astype(np.float32)
+    want = grender.render_histogram(levels, hi, H, 0, 3, False)
+    got = np.asarray(
+        drender.render_histogram(
+            levels, hi, level_height=H, display=0, n_components=3, yuv_mode=False
+        )
+    )
+    np.testing.assert_array_equal(got, want)

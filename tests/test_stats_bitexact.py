@@ -1,4 +1,4 @@
-"""Bit-exactness: JAX stat kernels vs the NumPy golden model.
+"""Bit-exactness: JAX statistics vs the NumPy golden model.
 
 The golden model (obs_color_monitor_tpu/golden) is the oracle for the
 reference's integer accumulation semantics (reference src/vectorscope.c:217-238,
@@ -204,10 +204,10 @@ def test_histogram_levels_logscale(small_frame):
 
 @pytest.mark.parametrize("scale", [1, 2, 3, 4, 5, 6, 8, 10, 12, 16, 20])
 def test_downscale_bitexact(small_frame, scale):
-    """Covers every formulation branch: passthrough (1), the pair-matmul
-    (2), the u32-bitcast (4), the u32 byte-stream + MXU group-sum for
-    scale % 4 == 0 (8/12/16/20 — the r5 lane-strided-read fix), its u16
-    twin for scale % 4 == 2 (6/10), and odd center-texel (3/5)."""
+    """Covers every branch of downscale_planes: passthrough (1), the
+    column-pair matmul (2), the u32 bitcast (4), the centre-rows +
+    column-pair select matmul for the other even scales (6/8/10/12/16/20),
+    and the centre-texel select matmul for odd scales (3/5)."""
     if small_frame.shape[0] < scale or small_frame.shape[1] < scale:
         pytest.skip("frame smaller than scale")
     want = golden.downscale(small_frame, scale)
@@ -227,7 +227,7 @@ def test_downscale_scale2_is_2x2_mean():
 
 
 def test_1080p_bitexact(frame_1080p):
-    """The BASELINE.json config-1 check: 1080p histogram + friends."""
+    """1080p histogram, vectorscope and waveform vs golden."""
     cs = Colorspace.BT709
     yuv_g = golden.rgb_to_yuv_u8(frame_1080p, cs)
     yuv_j = np.asarray(convert.rgb_to_yuv_u8(frame_1080p, cs=int(cs)))

@@ -3,8 +3,8 @@
 When configs are static and only the default consumers are registered,
 push_frame defers the analysis and render_async runs analyze + hub
 publication + every scope render + the composite as ONE cached device
-program per frame (VERDICT round-2 item 3; on a remote TPU each separate
-program execution pays a round trip).  These tests pin (a) frame-by-frame
+program per frame (each separate program execution pays its own
+dispatch).  These tests pin (a) frame-by-frame
 pixel AND published-statistics parity with the legacy hub route,
 (b) single-program reuse, (c) interleave-skip semantics, (d) fallbacks:
 custom consumers, push-without-render, bypass.
